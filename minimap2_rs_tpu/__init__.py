@@ -1,15 +1,16 @@
-"""minimap2_rs_tpu — a TPU-native long-read mapping framework.
+"""minimap2_rs_tpu — a long-read mapping framework on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas implementation of the minimap2-class mapping
 pipeline (minimizer sketching -> reference index -> seeding/anchors ->
 colinear chaining DP -> chain selection -> PAF output) with the same
 capabilities as the reference Rust implementation (xuzhougeng/minimap2_rs),
-re-designed for TPU hardware:
+re-designed for data-parallel accelerators (an NVIDIA GPU today):
 
-- sketching and chaining run as vectorized/Pallas kernels over padded,
+- sketching and chaining run as vectorized XLA programs (the chain DP as
+  a Pallas/Triton kernel on the GPU) over padded,
   masked batches (no pointer-chasing, no data-dependent shapes under jit);
-- the minimizer index is a flat HBM-resident sorted array probed with
-  vectorized binary search (replacing the reference's per-bucket HashMaps,
+- the minimizer index is a flat device-resident table probed with
+  vectorized lookups (replacing the reference's per-bucket HashMaps,
   /root/reference/src/index.rs:31,74-109);
 - scale-out is expressed with jax.sharding Mesh + shard_map: data-parallel
   read batches, an optionally hash-range-sharded index with all-to-all

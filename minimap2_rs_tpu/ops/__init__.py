@@ -2,8 +2,8 @@
 
 Everything here runs under jit with static shapes, masked padding, and
 32-bit arithmetic: 64-bit quantities (hashed keys, packed positions) are
-carried as (hi, lo) uint32 pairs (ops.u64) so no TPU int64 emulation is
-ever triggered.
+carried as (hi, lo) uint32 pairs (ops.u64), so nothing needs
+jax_enable_x64.
 """
 
 from .u64 import U64Pair  # noqa: F401

@@ -27,14 +27,11 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 I32 = jnp.int32
 F32 = jnp.float32
-# python literals, NOT jnp arrays: module-level committed jax
-# arrays get lifted as executable inputs and this environment's
-# jit cache mis-marshals them on repeat calls
 _NEG_INF = -(2**30)
-_LN2 = 0.6931472
 
 
 class ChainScalars(NamedTuple):
@@ -46,6 +43,22 @@ class ChainScalars(NamedTuple):
     bw: jnp.ndarray          # i32
     chn_pen_gap: jnp.ndarray  # f32
     chn_pen_skip: jnp.ndarray  # f32
+    half_log2: jnp.ndarray   # (T,) f32: 0.5 * log2(dd + 1), dd < T
+
+
+@functools.lru_cache(maxsize=8)
+def half_log2_table(size: int) -> np.ndarray:
+    """0.5 * mg_log2(dd + 1) for dd in [0, size), 0 at dd == 0, built by
+    the oracle's own scalar f32 function (lchain.rs:14-15,31). Every
+    device backend reads the log term from this table: a device `log`
+    may differ from the host's in the last bit, and the penalty is
+    truncated to an integer, so one ulp can move a score."""
+    from ..oracle.lchain import mg_log2
+
+    tab = np.zeros(size, np.float32)
+    for dd in range(1, size):
+        tab[dd] = np.float32(0.5) * mg_log2(dd + 1)
+    return tab
 
 
 def _window_scores(
@@ -69,10 +82,9 @@ def _window_scores(
     )
     sc = jnp.minimum(span_w, dg)
     lin_pen = p.chn_pen_gap * dd.astype(F32) + p.chn_pen_skip * dg.astype(F32)
-    log_pen = jnp.where(
-        dd >= 1, jnp.log((dd + 1).astype(F32)) / F32(_LN2), F32(0.0)
-    )
-    pen = (lin_pen + F32(0.5) * log_pen).astype(I32)  # f32 truncation
+    # in-band dd <= bw < table size; out-of-band cells are masked below
+    half_log = p.half_log2[jnp.clip(dd, 0, p.half_log2.shape[0] - 1)]
+    pen = (lin_pen + half_log).astype(I32)  # f32 truncation
     sc = jnp.where((dd != 0) | (dg > span_w), sc - pen, sc)
     return jnp.where(ok, sc + f_w, _NEG_INF), ok
 
@@ -205,13 +217,16 @@ def chain_dp_batch(
 
 def chain_scalars_from_params(p) -> ChainScalars:
     """Build traced scalars from a config.ChainParams, applying the
-    max_dist adjustment (lchain.rs:63-66)."""
+    max_dist adjustment (lchain.rs:63-66). The log table covers both
+    bands (max(bw, bw_long)), so the normal and the bw_long scalars have
+    one shape and share compiled programs."""
     return ChainScalars(
         max_dist_x=jnp.int32(max(p.max_dist_x, p.bw)),
         max_dist_y=jnp.int32(max(p.max_dist_y, p.bw)),
         bw=jnp.int32(p.bw),
         chn_pen_gap=jnp.float32(p.chn_pen_gap),
         chn_pen_skip=jnp.float32(p.chn_pen_skip),
+        half_log2=jnp.asarray(half_log2_table(max(p.bw, p.bw_long) + 1)),
     )
 
 

@@ -3,7 +3,7 @@
 The reference carries unused alignment helpers (banded Levenshtein,
 greedy end extension — /root/reference/src/paf.rs:35-124, dead code per
 SURVEY.md 2.13); the BASELINE north star calls for a banded affine-gap
-extension DP as the TPU build's extension stage. These kernels provide
+extension DP as the device build's extension stage. These kernels provide
 it without changing any default PAF field.
 
 Formulation: the band is a fixed window of W = 2b+1 diagonal offsets

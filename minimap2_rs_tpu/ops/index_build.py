@@ -125,9 +125,7 @@ def build_sorted_pairs_device(
     (keys, rid_pos_strand) globally sorted by (key, value).
 
     All batches stay on device (async dispatch, no per-batch sync); the
-    global sort runs on device and ONE transfer pulls the result — the
-    host<->device relay is latency- and bandwidth-bound, so transfer
-    count and bytes dominate this path's wall time."""
+    global sort runs on device and ONE transfer pulls the result."""
     halo = w + k
     C = chunk + 2 * halo
     # minimizer density is ~2/(w+1) ~= 0.18 at w=10; 0.3 is a safe cap

@@ -3,10 +3,11 @@
 Stream compaction ("pack emitted entries to the front, stable") is the
 innermost data-movement primitive of this pipeline: minimizer emission
 (sketch.rs:80-96 emits sparsely along the read) and anchor expansion
-(seeds.rs:42-60 repeats each minimizer `count` times) both need it. A
-lax.sort formulation costs ~25-40 ms per (4096, 1024) call on v5e; this
-module does the same movement in ceil(log2 L) masked shift passes
-(~2-3 ms) using a classic SIMD concentration-network result:
+(seeds.rs:42-60 repeats each minimizer `count` times) both need it.
+Instead of a full-width lax.sort, this module does the same movement in
+ceil(log2 L) masked shift passes using a classic SIMD
+concentration-network result (whether a GPU sort is faster is an open
+measurement):
 
     For a stable compaction, element i moves LEFT by
     delta_i = (# unset slots before i), which is NON-DECREASING in i.

@@ -46,7 +46,7 @@ def query_occ_filter(
     B, M = ks.hi.shape
     keys = u64.shr(ks, 8)
     # per-key counts on the sorted rows via run-length arithmetic (no
-    # binary search — cumulative ops only, TPU-friendly):
+    # binary search — cumulative ops only):
     #   count[i] = last_index_of_run(i) - first_index_of_run(i) + 1
     idx = jnp.broadcast_to(jnp.arange(M, dtype=I32), (B, M))
     prev = u64.U64Pair(
@@ -106,7 +106,7 @@ def build_anchors_device(
 
     # anchor slot a -> minimizer payload (the segmented expansion), as
     # three monotone routing passes (ops/route.py) instead of two
-    # full-width lax.sorts (~45 ms at (4096, 512) on v5e -> ~5 ms):
+    # full-width lax.sorts:
     #   1. compact the non-empty runs to the front (stable, so run
     #      heads keep increasing anchor-slot destinations cum_prev),
     #   2. spread each run head RIGHT to its first anchor slot — after
@@ -164,9 +164,7 @@ def build_anchors_device(
     if idx.pos_packed:
         # ONE plane gather of abs_pos<<1|strand; rid and the bucket base
         # are recovered by an n_seq-step fused compare chain against the
-        # cumulative lengths — no second gather (gathers are row-count
-        # bound on v5e, and the pos gathers were the expansion's
-        # dominant term at the headline shape)
+        # cumulative lengths — no second gather
         w = idx.pos[0][p_idx]
         absp = w >> U32(1)
         r_hi = jnp.zeros_like(w)   # rid

@@ -1,13 +1,13 @@
 """Batched device sketch kernel (JAX, fully vectorized — no sequential
 scan over positions).
 
-This is the TPU formulation of the reference's per-base scan
+This is the data-parallel formulation of the reference's per-base scan
 (/root/reference/src/sketch.rs:29-100), derived and fuzz-validated in
 oracle/sketch.py: per-position k-mer construction by log-step span
 doubling, hash64 on uint32 pairs, window-minimum marking over complete
 windows, plus the three exactness rules (completion-step tie handling,
 run-end drops, final emission). Everything is masked elementwise work on
-(B, L) arrays — XLA fuses it into a handful of VPU passes.
+(B, L) arrays — XLA fuses it into a handful of elementwise passes.
 
 Inputs are nt4 codes padded with 4 (ambiguous) to a static length; true
 lengths are passed separately so the final-emission rule fires at each
@@ -210,8 +210,6 @@ def sketch_positions(
     # l_eff: non-symmetric valid positions since reset. cs is
     # nondecreasing, so cs[last_bad] == running max of cs over bad
     # positions — a cummax instead of a (B, L) take_along_axis gather
-    # (random gathers are ~10 ns/element on TPU; this one op was ~45 ms
-    # of the kernel at (4096, 1024), the cummax is free)
     inc = (is_base & ~sym).astype(I32)
     cs = jnp.cumsum(inc, axis=1)
     cs_at_bad = jnp.maximum(
@@ -302,8 +300,7 @@ def sketch_positions(
         # l_eff == w+k-1, m1 = min over [e-w+1, e-1], M its newest tie:
         # ties of m1 except M are emitted; emitted[M] = ks[e] > m1.
         # M lies within w-1 of e, so the "write at M" scatter becomes a
-        # bounded loop of shifted masked ORs (XLA scatters cost ~10 ms
-        # per (B, L) call on v5e; these are plain VPU passes).
+        # bounded loop of shifted masked ORs instead of an XLA scatter.
         compl_e = l_eff == (w + k - 1)
         m1 = K_shr1(wmin1)
         M = _shift_right(widx1, 1, I32(-1))
@@ -373,9 +370,8 @@ def compact_minimizers(
     max_out slots. Returns (ks, pos_strand, n_valid, overflow).
 
     Stable stream compaction via the monotone routing network
-    (ops/route.py): ceil(log2 L) masked shift passes (~2 ms at
-    (4096, 1024) on v5e) instead of a full-width lax.sort (~25-40 ms) or
-    argsort + take_along_axis row gathers (~60 ms)."""
+    (ops/route.py): ceil(log2 L) masked shift passes instead of a
+    full-width lax.sort or argsort + take_along_axis row gathers."""
     from .route import compact_left
 
     B, L = emitted.shape

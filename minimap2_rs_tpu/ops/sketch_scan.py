@@ -17,7 +17,7 @@ into a `lax.scan` over positions, vectorized over the read batch:
   N-compacted sequence and gathering back.
 - the sequential part carried through the scan is only the reference's
   w-slot ring buffer + tracked minimum (sketch.rs:80-96); each step is
-  a handful of masked (B, w) VPU ops.
+  a handful of masked (B, w) elementwise ops.
 - emissions are reported per step as (ring-slot mask, tracked-min
   distance) and reassembled into the (B, L) `emitted` mask afterwards
   with w bounded shifted-ORs — the slot j of step i always holds

@@ -1,11 +1,10 @@
-"""64-bit integers as (hi, lo) uint32 pairs for TPU.
+"""64-bit integers as (hi, lo) uint32 pairs.
 
-TPUs have no native 64-bit integer datapath; XLA emulates s64/u64 which is
-slow and (without jax_enable_x64) unavailable in JAX anyway. The
+Without jax_enable_x64, JAX has no s64/u64 arrays at all. The
 reference's bit-level contracts (hashed keys, Minimizer/Anchor packing —
 /root/reference/src/sketch.rs:16-19, seeds.rs:63-78) are all 64-bit, so
 this module provides the handful of u64 operations the kernels need as
-plain uint32 VPU ops: shifts across the word boundary, add-with-carry,
+plain uint32 ops: shifts across the word boundary, add-with-carry,
 bitwise ops, and lexicographic comparison.
 
 A U64Pair is a pytree (works under jit/vmap/scan); all ops are

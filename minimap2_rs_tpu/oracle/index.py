@@ -3,7 +3,7 @@
 The reference stores minimizers in 2^b buckets, each holding a
 HashMap<key,(offset,count)|position> plus a positions array
 (/root/reference/src/index.rs:31,74-109). Pointer-chasing hash tables do not
-map to TPU/XLA, so the canonical in-memory representation here is four flat
+map to XLA, so the canonical in-memory representation here is four flat
 arrays sorted by the full hashed key:
 
     keys[u]    : sorted distinct 2k-bit hashed minimizer keys (uint64)

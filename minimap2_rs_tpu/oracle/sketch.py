@@ -9,7 +9,7 @@ Two implementations of (w,k)-minimizer extraction:
   estimate re-sketches the query, paf.rs:156).
 
 - ``sketch_sequence_fast``: a fully vectorized NumPy formulation based on a
-  window-minimum *set characterization*; it is the prototype for the TPU
+  window-minimum *set characterization*; it is the prototype for the device
   kernel (ops/sketch.py). Derivation (validated by fuzzing in
   tests/test_sketch.py):
 

@@ -1,7 +1,7 @@
 """Device mesh construction.
 
 The reference's only parallelism is shared-memory rayon loops
-(/root/reference/src/index.rs:77,443); the TPU design replaces it with a
+(index.rs:77,443); the device design replaces it with a
 jax.sharding Mesh. Axes:
 
 - "dp": data parallel over read batches (the rayon par_iter analog);

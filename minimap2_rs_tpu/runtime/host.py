@@ -1,10 +1,11 @@
 """ctypes bindings for the native host runtime (libmm2t_host.so).
 
-The library is built with `make -C minimap2_rs_tpu/runtime/native` (plain
-g++, no extra deps). Every entry point has a pure-Python fallback in the
+The library is built from mm2t_host.cpp on first use (plain g++ through
+the Makefile, no extra deps; `make -C minimap2_rs_tpu/runtime/native`
+builds it by hand). Every entry point has a pure-Python fallback in the
 oracle package, so the framework works without the .so — the native path
 is the production-speed host runtime for the irregular work around the
-TPU kernels (SURVEY.md section 2 note: "no Python stand-ins for hot
+device pipeline (SURVEY.md section 2 note: "no Python stand-ins for hot
 paths").
 """
 
@@ -51,18 +52,48 @@ def _enable_heap_reuse():
     and never trim the heap (mallopt M_MMAP_THRESHOLD / M_TRIM_THRESHOLD).
 
     Freed mmap chunks are unmapped immediately, so every index-build or
-    mapping pass re-faults hundreds of MB of buffers — and this
-    environment's page faults cost ~36 us each (sandboxed kernel), which
-    made the 100 Mbp build's wall time swing 3x pass-to-pass
-    (BENCH_r03). With brk reuse the pages stay mapped: steady-state
-    passes allocate fault-free. Cost: the process high-water heap is
-    kept (a few hundred MB at genome scale)."""
+    mapping pass re-faults hundreds of MB of buffers, and page faults
+    are expensive under virtualization. With brk reuse the pages stay
+    mapped: steady-state passes allocate fault-free. Cost: the process
+    high-water heap is kept (a few hundred MB at genome scale)."""
     try:
         libc = ctypes.CDLL(None)
         libc.mallopt(-3, 1 << 30)  # M_MMAP_THRESHOLD
         libc.mallopt(-1, -1)       # M_TRIM_THRESHOLD
     except Exception:
         pass
+
+
+def _stale(so: str, src: str) -> bool:
+    return not os.path.exists(so) or (
+        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so)
+    )
+
+
+def _build(so: str, src: str) -> None:
+    """Build libmm2t_host.so from the committed source with the Makefile.
+    Concurrent importers (e.g. test workers) serialize on a file lock,
+    and the library is compiled under a temporary name and moved into
+    place with os.replace, so no process loads a half-written file."""
+    import fcntl
+    import tempfile
+
+    d = os.path.dirname(so)
+    with open(os.path.join(d, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(so, src):
+            return  # built by another process while this one waited
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp.so")
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["make", "-s", "-B", "-C", d, f"OUT={os.path.basename(tmp)}"],
+                check=True, capture_output=True, timeout=300,
+            )
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 def _load():
@@ -73,16 +104,10 @@ def _load():
     _enable_heap_reuse()
     so = os.path.join(os.path.dirname(__file__), "native", "libmm2t_host.so")
     src = os.path.join(os.path.dirname(so), "mm2t_host.cpp")
-    stale = not os.path.exists(so) or (
-        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so)
-    )
-    if stale:
-        # best-effort local (re)build (g++ is expected in the image)
+    if _stale(so, src):
+        # built on first use (g++ is expected in the image)
         try:
-            subprocess.run(
-                ["make", "-s", "-B", "-C", os.path.dirname(so)],
-                check=True, capture_output=True, timeout=120,
-            )
+            _build(so, src)
         except Exception as e:
             if not os.path.exists(so):
                 return None

@@ -1,6 +1,6 @@
 // Native host runtime for minimap2_rs_tpu.
 //
-// The device (TPU) owns the heavy compute (sketch, lookup, anchor
+// The device (GPU) owns the heavy compute (sketch, lookup, anchor
 // expansion, chaining DP scores); this library owns the irregular
 // pointer-chasing host work the reference does in Rust:
 //
@@ -733,8 +733,8 @@ void mm2t_encode_pack4(const uint8_t* const* seqs, const int64_t* lens,
 // positions past each read's length are masked to 4 on device from
 // `lengths`, so padding costs no exceptions. Returns the exception
 // count; if it exceeds nex_cap the caller must fall back to the 4-bit
-// wire (out/out_nex contents are then unspecified). Halves H2D bytes —
-// the host->TPU relay is the headline pass's largest wire cost.
+// wire (out/out_nex contents are then unspecified). Halves H2D bytes
+// against the 4-bit wire.
 int64_t mm2t_encode_pack2(const uint8_t* const* seqs, const int64_t* lens,
                           int64_t B, int64_t Lpack2, uint8_t* out,
                           int32_t* out_nex, int64_t nex_cap) {

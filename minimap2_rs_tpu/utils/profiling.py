@@ -1,5 +1,5 @@
 """Tracing/observability (SURVEY.md section 5: the reference has none —
-the TPU build provides jax.profiler traces and a per-stage device-time
+the device build provides jax.profiler traces and a per-stage device-time
 breakdown)."""
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Long-read chain kernel tests: the lane-layout Pallas kernels
-(anchors along lanes, used once A >= 1024) must match the lax.scan
-formulation, and the truncated-window fast path must flag exactly the
-reads whose full-window DP could differ (models/mapper.py re-runs
-those at max_chain_iter)."""
+"""Long-read chain kernel tests: the Triton chain kernel (run through
+the Pallas interpreter) must match the lax.scan formulation at long-read
+shapes, with full and truncated windows, and the truncated-window fast
+path must flag exactly the reads whose full-window DP could differ
+(models/mapper.py re-runs those at max_chain_iter)."""
 
 import numpy as np
 import pytest
@@ -11,16 +11,13 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from minimap2_rs_tpu.config import ChainParams
+from minimap2_rs_tpu.models.mapper import DUAL_BAND_MAX_A
 from minimap2_rs_tpu.ops.chain_ops import (
     chain_dp_aux_batch,
     chain_dp_batch,
     chain_scalars_from_params,
 )
-from minimap2_rs_tpu.ops.chain_pallas import (
-    _LANE_LAYOUT_MIN_A,
-    chain_dp_aux_batch_pallas,
-    chain_dp_batch_pallas,
-)
+from minimap2_rs_tpu.ops.chain_triton import chain_dp_triton
 from minimap2_rs_tpu.ops import u64
 
 
@@ -45,18 +42,20 @@ def _synthetic_anchors(B, A, seed, genome=200_000, qmax=30_000):
 
 @pytest.mark.parametrize("window_frac", [1.0, 0.4])
 def test_lane_kernels_match_scan(window_frac):
-    B, A = 8, 2 * _LANE_LAYOUT_MIN_A
+    """Both kernel variants at a single-band (long-read) shape, with the
+    kernel's production launch configuration."""
+    B, A = 8, 2 * DUAL_BAND_MAX_A
     grp, rpos, qpos, span = _synthetic_anchors(B, A, seed=11)
     cp = ChainParams.defaults_for_k(15)
     scal = chain_scalars_from_params(cp)
     args = (jnp.asarray(grp), jnp.asarray(rpos), jnp.asarray(qpos), jnp.asarray(span))
     window = int(A * window_frac)
     f1, p1 = chain_dp_batch(*args, scal, window)
-    f2, p2 = chain_dp_batch_pallas(*args, scal, window)
+    f2, p2 = chain_dp_triton(*args, scal, window, aux=False, interpret=True)
     np.testing.assert_array_equal(np.asarray(f1), np.asarray(f2))
     np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
     o1 = chain_dp_aux_batch(*args, scal, window)
-    o2 = chain_dp_aux_batch_pallas(*args, scal, window)
+    o2 = chain_dp_triton(*args, scal, window, aux=True, interpret=True)
     for a, b in zip(o1, o2):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
@@ -98,7 +97,7 @@ def test_window_truncation_detector_is_exact():
         qpos[b] = np.maximum(qp, 1)
     args = (jnp.asarray(grp), jnp.asarray(rpos), jnp.asarray(qpos), jnp.asarray(span))
     f_full, _ = chain_dp_batch(*args, scal, A)
-    f_trunc, _ = chain_dp_batch_pallas(*args, scal, H)
+    f_trunc, _ = chain_dp_triton(*args, scal, H, aux=False, interpret=True)
 
     # the detector, as computed in models/mapper._fused_map_stage_lite
     x_hi = jnp.asarray(grp)

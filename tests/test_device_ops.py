@@ -190,11 +190,11 @@ def test_device_chain_dp_matches_oracle(device_setup):
 
 
 def test_pallas_chain_matches_scan(device_setup):
-    """The Pallas chaining kernel must agree with the lax.scan formulation
-    (which itself matches the oracle DP)."""
+    """The Triton chaining kernel (Pallas interpreter) must agree with
+    the lax.scan formulation (which itself matches the oracle DP)."""
     import jax.numpy as jnp
 
-    from minimap2_rs_tpu.ops.chain_pallas import chain_dp_batch_pallas
+    from minimap2_rs_tpu.ops.chain_triton import chain_dp_batch_triton
 
     genome, idx, dev = device_setup
     reads = simulate_reads(genome, 4, read_len=(150, 250), seed=21)
@@ -218,17 +218,17 @@ def test_pallas_chain_matches_scan(device_setup):
         span[b, :n] = ((anchors[:, 1] >> np.uint64(32)) & np.uint64(0xFF)).astype(np.int32)
     args = (jnp.asarray(grp), jnp.asarray(rpos), jnp.asarray(qpos), jnp.asarray(span))
     f1, p1 = chain_dp_batch(*args, scal, A)
-    f2, p2 = chain_dp_batch_pallas(*args, scal, A)
+    f2, p2 = chain_dp_batch_triton(*args, scal, A, interpret=True)
     np.testing.assert_array_equal(np.asarray(f1), np.asarray(f2))
     np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
 
 
 def test_pallas_aux_chain_matches_scan(device_setup):
-    """The aux-accumulating Pallas kernel must match the scan variant."""
+    """The aux-accumulating Triton kernel must match the scan variant."""
     import jax.numpy as jnp
 
     from minimap2_rs_tpu.ops.chain_ops import chain_dp_aux_batch
-    from minimap2_rs_tpu.ops.chain_pallas import chain_dp_aux_batch_pallas
+    from minimap2_rs_tpu.ops.chain_triton import chain_dp_aux_batch_triton
 
     genome, idx, dev = device_setup
     reads = simulate_reads(genome, 4, read_len=(150, 250), seed=31)
@@ -256,7 +256,7 @@ def test_pallas_aux_chain_matches_scan(device_setup):
         jnp.asarray(span),
     )
     o1 = chain_dp_aux_batch(*args, scal, A)
-    o2 = chain_dp_aux_batch_pallas(*args, scal, A)
+    o2 = chain_dp_aux_batch_triton(*args, scal, A, interpret=True)
     for a, b in zip(o1, o2):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
